@@ -1,4 +1,4 @@
-"""Benchmark: the reference's headline workload on real TPU hardware.
+"""Benchmark: the reference's headline workload on the GPU.
 
 Workload: all-vs-all Jaccard matrix of the 9 bundled E. coli genomes at the
 reference defaults (K=31, S=15, W=12, H=4) — end-to-end wall time including
@@ -42,10 +42,10 @@ def run_once(out_path: str):
 
 
 def kernel_parity_gate(idx) -> bool:
-    """Byte-compare the compiled Pallas count kernels (pcount pair-packed,
-    bcount bit-plane) against the XLA path ON THE REAL CHIP at a G large
-    enough to route through them (the golden matrix at G=9 uses the XLA
-    path, so a Mosaic miscompile would otherwise ship silently)."""
+    """Byte-compare the compiled bit-plane count kernel (and the plain
+    formula) against the unpacked XLA compare ON THE GPU at a G large
+    enough to route through them (the golden matrix at G=9 counts on the
+    host, so a miscompiled kernel would otherwise ship silently)."""
     import numpy as np
     from niqki_tpu import SketchIndex
     n_rep = -(-4104 // idx.G)
@@ -54,26 +54,25 @@ def kernel_parity_gate(idx) -> bool:
     big.names = [f"t{i}" for i in range(len(big._mat))]
     q = idx.matrix()
     results = {}
-    for mode in ("xla", "pcount", "bcount"):
+    for mode in ("xla", "jnp", "bcount"):
         os.environ["NIQKI_TPU_COUNT"] = mode
-        big._device_mat = big._device_packed = big._device_planes = None
+        big._device_mat = big._device_planes = None
         t0 = time.time()
         results[mode] = big.counts(q)
         log(f"parity gate {mode}: {time.time() - t0:.2f}s")
     os.environ.pop("NIQKI_TPU_COUNT", None)
-    ok = (results["xla"] == results["pcount"]).all() and \
+    ok = (results["xla"] == results["jnp"]).all() and \
          (results["xla"] == results["bcount"]).all()
-    log(f"pallas kernel parity vs XLA at G={big.G}: {ok}")
+    log(f"bit-plane count parity vs XLA at G={big.G}: {ok}")
     return bool(ok) and wide_shape_parity_gates()
 
 
 def wide_shape_parity_gates() -> bool:
-    """Extra real-chip kernel-shape gates (VERDICT r5 item 5): the W=12
-    gate above covers only the split-wire int16 planes shape, but Mosaic
-    miscompiles are chip- and shape-specific (CLAUDE.md's own kernel
-    gotchas), so one gate each for W=14 (int16 wire, no split), W=16
-    (int32 planes path), and the fused pack+count+top_k dispatch — all
-    byte-compared against the XLA path / dense formatter on the chip."""
+    """Extra kernel-shape gates on the GPU: the W=12 gate above covers
+    only the split-wire int16 planes shape, so one gate each for W=14
+    (int16 wire, no split), W=16 (int32 planes path), and the fused
+    pack+count+top_k dispatch — all byte-compared against the XLA path /
+    dense formatter."""
     import numpy as np
     from niqki_tpu import SketchIndex, SketchParams, native
     ok = True
@@ -88,8 +87,7 @@ def wide_shape_parity_gates() -> bool:
         res = {}
         for mode in ("xla", "bcount"):
             os.environ["NIQKI_TPU_COUNT"] = mode
-            gate._device_mat = gate._device_packed = None
-            gate._device_planes = None
+            gate._device_mat = gate._device_planes = None
             res[mode] = gate.counts(q)
         os.environ.pop("NIQKI_TPU_COUNT", None)
         w_ok = bool((res["xla"] == res["bcount"]).all())
@@ -123,12 +121,9 @@ def main():
         log("warmup (jit compile)...")
         t, _ = run_once(warm)
         log(f"warmup run: {t:.2f}s")
-        # Best-of-5 with the full spread reported, every run parity-checked:
-        # the transport adds multi-second outliers on bad nights that are
-        # not the engine's steady state (each run re-reads, re-sketches and
-        # re-counts — nothing is memoized across runs on the host side), and
-        # a sub-0.1 s workload needs the spread visible so round-over-round
-        # numbers don't read transport weather as regressions.
+        # Best-of-5 with the full spread reported, every run parity-checked
+        # (each run re-reads, re-sketches and re-counts — nothing is
+        # memoized across runs on the host side).
         reps = []
         for rep in range(5):
             t1, idx = run_once(out)
@@ -145,7 +140,7 @@ def main():
         t = min(reps)
         log("output matches reference golden: True (all reps)")
         if not kernel_parity_gate(idx):
-            print(json.dumps({"metric": "pallas_count_PARITY_FAIL",
+            print(json.dumps({"metric": "bitplane_count_PARITY_FAIL",
                               "value": 0.0, "unit": "s", "vs_baseline": 0.0}))
             return 1
     med = sorted(reps)[len(reps) // 2]

@@ -1,6 +1,5 @@
 """Short-read (lines-mode) benchmark: 100k x 150 bp FASTQ through -l/-i,
-parity-gated against the reference binary on the SAME input (VERDICT
-round-1 item 5).
+parity-gated against the reference binary on the SAME input.
 
 Workloads (S=10 defaults otherwise):
   * query:  -I <9 ecoli genomes>  -l reads.fq   (sketch every read, count

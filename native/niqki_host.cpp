@@ -1,6 +1,6 @@
-// niqki_tpu native host runtime: streaming genome ingest for the TPU engine.
+// niqki_tpu native host runtime: streaming genome ingest for the device engine.
 //
-// TPU-native split of responsibilities: the device (JAX/XLA/Pallas) owns all
+// Split of responsibilities: the device (JAX/XLA/Pallas) owns all
 // sketch math over encoded arrays; this library owns the host-side hot path
 // that feeds it — gzip decode, FASTA/FASTQ record parsing, 2-bit encoding —
 // plus the two tiny inherently-sequential routines (densification, and a
@@ -52,7 +52,7 @@
 // zlib's streaming inflate; it is the default decode path for files whose
 // compressed size is bounded (whole-buffer decode), with zlib streaming as
 // the fallback for huge files and as the portable build.
-#if defined(__has_include)
+#if defined(__has_include) && !defined(NQ_NO_LIBDEFLATE)
 #if __has_include(<libdeflate.h>)
 #include <libdeflate.h>
 #define NQ_HAVE_LIBDEFLATE 1

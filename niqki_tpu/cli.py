@@ -28,12 +28,12 @@ from .io.writers import GzTextWriter
 from .params import SketchParams
 
 LOGO = r"""
-     _   _ ___ ___  _  _____   _____ ____  _   _
-    | \ | |_ _/ _ \| |/ /_ _| |_   _|  _ \| | | |
-    |  \| || | | | | ' / | |    | | | |_) | | | |
-    | |\  || | |_| | . \ | |    | | |  __/| |_| |
-    |_| \_|___\__\_\_|\_\___|   |_| |_|    \___/
-        TPU-native k-mer fingerprint indexing
+     _   _ ___ ___  _  _____
+    | \ | |_ _/ _ \| |/ /_ _|
+    |  \| || | | | | ' / | |
+    | |\  || | |_| | . \ | |
+    |_| \_|___\__\_\_|\_\___|
+     k-mer fingerprint indexing on JAX
 """
 
 
@@ -104,7 +104,7 @@ USAGE = """
   --logo                        Print ASCII art logo, then exit.
   --help, -h                    Print usage and exit.
 
-***TPU-native additions (niqki_tpu only)***
+***Engine additions (niqki_tpu only)***
   --mesh <DxT|auto|off>         Device mesh for multi-chip runs.
   --backend <jax|numpy>         Compute backend (default jax).
   --binary-hits                 The reference's unreachable binary hit format.
@@ -135,7 +135,7 @@ def _openable(path: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="niqki-tpu", add_help=False,
-        description="TPU-native genome-sketch index (NIQKI-compatible CLI)")
+        description="Genome-sketch index (NIQKI-compatible CLI)")
     g = ap.add_argument_group("Input")
     g.add_argument("-I", "--index", metavar="<file>",
                    help="Input file of files to Index.")
@@ -191,9 +191,10 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--backend", default="jax", choices=["jax", "numpy"],
                    help="Compute backend (default jax).")
     x.add_argument("--mesh", metavar="<DxT|auto|off>",
-                   help="Device mesh for multi-chip runs: 'auto' (default; "
-                        "('dp','tp') over all TPU devices when more than "
-                        "one), an explicit shape like '2x4', or 'off'.")
+                   help="Device mesh for multi-device runs: 'auto' "
+                        "(default; ('dp','tp') over all accelerator devices "
+                        "when more than one), an explicit shape like '2x4', "
+                        "or 'off'.")
     x.add_argument("--profile", metavar="<dir>",
                    help="Write a jax.profiler trace (TensorBoard/XProf) of "
                         "the run to this directory.")

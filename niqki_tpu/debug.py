@@ -13,12 +13,22 @@ three chrono spans (src/niqki.cpp:307,363-365,386-390).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import sys
 import time
 
 LEVEL = int(os.environ.get("NIQKI_TPU_DEBUG", "0") or "0")
+
+# Route counters: how often each engine route ran in this process
+# ("sketch:device", "count:pallas", "hits:sparse", ...). chip_smoke.py reads
+# them to prove that the device paths it asked for are the ones that ran.
+ROUTES: collections.Counter = collections.Counter()
+
+
+def note(route: str, n: int = 1) -> None:
+    ROUTES[route] += n
 
 
 def dbg(msg: str, level: int = 1) -> None:

@@ -1,6 +1,6 @@
 """Streaming NCBI ingest: download, sketch, insert — nothing kept on disk.
 
-TPU-native rework of the reference's popen("wget | gzip -d") pipeline
+Rework of the reference's popen("wget | gzip -d") pipeline
 (/root/reference/src/niqki_index.cpp:802-870): a thread pool streams and
 gunzips assemblies with urllib + zlib, parses FASTA records incrementally,
 and feeds sketches to the index; ids are assigned in fof order

@@ -12,7 +12,7 @@ the reference dump for interoperability
 Because every indexed genome contributes exactly one fingerprint per slot
 (sketches are fully densified), the bucket lists per slot form a partition of
 all genome ids; this module converts between that inverted layout and the
-dense (G, F) fingerprint matrix the TPU engine uses natively.
+dense (G, F) fingerprint matrix the engine uses natively.
 
 A native sharded checkpoint format (v2: raw little-endian int32 row blocks —
 optionally one-shot-gzip'd — plus per-shard name blobs and a JSON manifest)

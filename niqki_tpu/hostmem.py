@@ -1,7 +1,7 @@
 """Host memory + IO primitives sized for multi-GB sketch matrices.
 
-Two pathologies of virtualized TPU hosts are worked around here, both
-measured on this machine (see README "Measured" notes):
+Two pathologies of the virtualized host the engine was first built on are
+worked around here (whether the GPU host needs them is ROADMAP C4):
 
 * **First-touch page faults are catastrophically slow** (~22 MB/s) for
   fresh 4 KB pages, so a plain ``np.empty`` of a 100k-genome matrix costs

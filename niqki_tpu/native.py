@@ -248,7 +248,7 @@ def read_packed_records(path: str, K: int,
     packed_words: uint32 array, base i's forward code in bits 2*(i%16) of
     word i//16. exc_idx: int32 positions (>= K-1) where the true reverse-
     complement code is 0 instead of the derived 3 - fwd (non-ACGT chars).
-    This is the wire format of the TPU ingest path: 2 bits/base.
+    This is the wire format of the device ingest path: 2 bits/base.
     """
     lib = _load()
     if lib is None:

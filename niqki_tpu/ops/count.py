@@ -1,15 +1,15 @@
 """Fingerprint-match counting: the query engine's hot kernel.
 
-TPU-first replacement for the reference's posting-list scans and its
+Dense replacement for the reference's posting-list scans and its
 all-buckets atomic sweep (/root/reference/src/niqki_index.cpp:570-628,
 633-687): because every sketch has exactly one fingerprint per slot, the
 whole inverted index is a dense (G, F) int matrix and hit counting is
 
     counts[q, g] = sum_i [Q[q, i] == X[g, i]]
 
-a blocked equality-count contraction that runs at VPU speed with perfect
-memory locality — no pointer chasing, no atomics, no locks; identical counts
-to the reference by construction.
+a blocked equality-count contraction with perfect memory locality — no
+pointer chasing, no atomics, no locks; identical counts to the reference
+by construction.
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ def match_counts_blocked(q_sk: jnp.ndarray, g_sk: jnp.ndarray,
 def match_counts(q_sk, g_sk) -> jnp.ndarray:
     """Unblocked variant for small problems (compiles to one fused reduce).
 
-    For large HBM-resident indexes use ops.pcount (Pallas tile kernel, one
-    index pass per query block) — SketchIndex.counts routes automatically.
+    For large device-resident indexes use ops.bcount (the bit-plane count)
+    — SketchIndex.counts routes automatically.
     """
     return jnp.sum((q_sk[:, None, :] == g_sk[None, :, :]),
                    axis=-1, dtype=jnp.int32)

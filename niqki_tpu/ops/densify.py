@@ -10,7 +10,7 @@ multichip dryrun, fused ingest paths) with identical results.
 
 Only the low 32 bits of hash_family matter because F is a power of two, so
 target = (unrevhash_lo(v) + step * revhash_lo(v)) mod 2^32 & (F-1) — all
-uint32, TPU-native.
+uint32.
 """
 
 from __future__ import annotations

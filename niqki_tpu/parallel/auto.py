@@ -1,12 +1,13 @@
 """Production mesh activation for the engine surface.
 
 The reference is one process with OpenMP threads (its whole control flow is
-/root/reference/src/niqki.cpp:229-456); the TPU-native engine instead runs
-every batch axis over a ('dp', 'tp') jax.sharding.Mesh. This module decides
+/root/reference/src/niqki.cpp:229-456); this engine instead runs every
+batch axis over a ('dp', 'tp') jax.sharding.Mesh. This module decides
 *when* the product surface (SketchIndex / engine / CLI) uses that mesh:
 
-  NIQKI_TPU_MESH = "auto"   (default) multi-device TPU backend -> default
-                            ('dp','tp') shape; single device or CPU -> off
+  NIQKI_TPU_MESH = "auto"   (default) several accelerator devices (e.g. the
+                            four GPUs of one host) -> default ('dp','tp')
+                            shape; one device or the CPU backend -> off
                    "DxT"    explicit shape, any backend (e.g. "2x4" on the
                             8-virtual-device CPU mesh used by tests/CI)
                    "off"    force single-device paths
@@ -40,7 +41,7 @@ def active_mesh():
     mesh = None
     if spec in ("auto", ""):
         devs = jax.devices()
-        if len(devs) > 1 and devs[0].platform == "tpu":
+        if len(devs) > 1 and devs[0].platform != "cpu":
             dp, tp = default_mesh_shape(len(devs))
             mesh = make_mesh(devs, dp=dp, tp=tp)
     elif spec in ("off", "none", "0", "1", "1x1"):

@@ -9,8 +9,8 @@ Two logical axes:
             no ring pass needed).
 
 Multi-host: callers run jax.distributed.initialize() first; the mesh is then
-built over the global device list and all collectives ride ICI within a slice
-and DCN across hosts, compiled by XLA from the shardings.
+built over the global device list, and XLA compiles the collectives from the
+shardings (NCCL over NVLink between the GPUs of one host).
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Multi-chip index serving: the engine's distributed query path.
+"""Multi-device index serving: the engine's distributed query path.
 
 ShardedIndex places a SketchIndex's index row-sharded over the mesh's 'tp'
-axis (each chip owns a contiguous genome range — the TP analog of sharding
-NIQKI's bucket table, /root/reference/src/niqki_index.cpp:27) and runs hit
-counting under shard_map with query batches sharded over 'dp'. Count blocks
-land sharded over both axes and are gathered once per batch.
+axis (each device owns a contiguous genome range — the TP analog of
+sharding NIQKI's bucket table, /root/reference/src/niqki_index.cpp:27) and
+runs hit counting under shard_map with query batches sharded over 'dp'.
+Count blocks land sharded over both axes and are gathered once per batch.
 
-The per-shard kernel is the bit-plane Pallas kernel (ops/bcount) whenever
-its shape gate holds — each chip holds its shard as W+1 bit-planes — with
-the dense XLA compare as the small-index fallback. Counts are identical to
-the single-device path by construction (sharding is a layout choice).
+The per-shard count is the bit-plane count (ops/bcount) whenever its shape
+gate holds — each device holds its shard as W+1 bit-planes — with the dense
+XLA compare as the fallback. Counts are identical to the single-device path
+by construction (sharding is a layout choice).
 
 Multi-host: call `init_distributed()` (jax.distributed) on every host before
-building the mesh; the same code then spans hosts with DCN collectives —
-there is no other code path to maintain.
+building the mesh; the same code then spans hosts — there is no other code
+path to maintain.
 """
 
 from __future__ import annotations
@@ -26,11 +26,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..debug import note
 from ..index import SketchIndex
 from .mesh import make_mesh, default_mesh_shape
-from .sharded import (sharded_count, sharded_count_packed,
-                      sharded_count_planes, sharded_count_planes_topk,
-                      sharded_selfjoin)
+from .sharded import (sharded_count, sharded_count_planes,
+                      sharded_count_planes_topk, sharded_selfjoin)
 
 
 def init_distributed(coordinator: str | None = None,
@@ -45,10 +45,13 @@ def init_distributed(coordinator: str | None = None,
 
 
 class ShardedIndex:
-    """Row-sharded device-resident index for batched multi-chip queries."""
+    """Row-sharded device-resident index for batched multi-device queries."""
 
     def __init__(self, index: SketchIndex, mesh: Mesh | None = None,
-                 interpret: bool | None = None):
+                 impl: str | None = None):
+        """``impl``: the bit-plane count implementation (bcount.IMPLS);
+        default bcount.count_impl(), i.e. $NIQKI_TPU_COUNT and the
+        backend."""
         from ..ops import bcount
         if mesh is None:
             devs = jax.devices()
@@ -62,21 +65,10 @@ class ShardedIndex:
         self._dp = mesh.shape["dp"]
         self._fns: dict = {}     # compiled sparse-path fns by (kind, shape)
         p = self.params
-        if interpret is None:
-            interpret = jax.devices()[0].platform != "tpu"
-        self._interpret = interpret
-        # Per-shard kernel choice mirrors SketchIndex.counts: bit-plane
-        # bcount (fastest measured) when its shape gate holds, pair-packed
-        # pcount as fallback for W<=14, dense XLA compare for small indexes.
-        big = self.G >= 4096 or interpret
-        from ..ops import pcount
-        if big and p.F % 4096 == 0 and 1 <= p.W <= 30:
+        if bcount.supported(p.F, p.W):
             self._kernel = "planes"
+            self._impl = impl or bcount.count_impl()
             row_align = self._tp * bcount.TILE_G
-        elif big and p.W <= 14 and p.F % 256 == 0 and (p.F // 2) % min(
-                pcount.CHUNK_LANES, p.F // 2) == 0:
-            self._kernel = "packed"
-            row_align = self._tp * pcount.TILE_G
         else:
             self._kernel = "dense"
             row_align = self._tp
@@ -86,19 +78,13 @@ class ShardedIndex:
         if pad_g:
             # Padding rows of -2 can never match a fingerprint (valid range
             # [-1, 2^W)); they are sliced off the count output anyway.
-            # Hugepage destination: GB-scale vstack is first-touch-bound
-            # on this host class (niqki_tpu/hostmem.py).
+            # Hugepage destination (niqki_tpu/hostmem.py).
             from ..hostmem import big_empty
             padded = big_empty((self._Gp, mat.shape[1]), np.int32)
             padded[:self.G] = mat
             padded[self.G:] = -2
             mat = padded
-        if self._kernel == "packed":
-            gp = pcount.pack_rows_np(mat.astype(np.int16))
-            self._mat = jax.device_put(
-                gp, NamedSharding(mesh, P("tp", None)))
-            self._count = sharded_count_packed(mesh, interpret=interpret)
-        elif self._kernel == "planes":
+        if self._kernel == "planes":
             mat_dev = jax.device_put(
                 mat, NamedSharding(mesh, P("tp", None)))
             self._planes = jax.jit(
@@ -106,10 +92,11 @@ class ShardedIndex:
                 static_argnames=("W", "query"),
                 out_shardings=NamedSharding(mesh, P(None, "tp", None)),
             )(mat_dev, W=p.W, query=False)
-            self._count = sharded_count_planes(mesh, interpret=interpret)
+            self._count = sharded_count_planes(mesh, self._impl)
             self._qpack = jax.jit(
                 bcount.pack_bitplanes, static_argnames=("W", "query"),
                 out_shardings=NamedSharding(mesh, P(None, "dp", None)))
+            note("count:" + self._impl)
         else:
             self._mat = jax.device_put(
                 mat, NamedSharding(mesh, P("tp", None)))
@@ -117,7 +104,7 @@ class ShardedIndex:
 
     @classmethod
     def from_checkpoint(cls, directory: str, mesh: Mesh | None = None,
-                        interpret: bool | None = None) -> "ShardedIndex":
+                        impl: str | None = None) -> "ShardedIndex":
         """Mesh-direct serving restart: build a ShardedIndex straight from
         a sharded checkpoint (v2/v3), placing each mesh 'tp' shard's
         bit-planes on its owning device via jax.make_array_from_callback —
@@ -150,9 +137,9 @@ class ShardedIndex:
             min_fract=pp["min_fract"],
             stale_mask_M=pp.get("stale_mask_M"),
             stale_maximal_remainder=pp.get("stale_maximal_remainder"))
-        if not (params.F % 4096 == 0 and 1 <= params.W <= 30):
-            raise ValueError("mesh-direct load needs the bit-plane kernel "
-                             "shape gate (F%4096==0, 1<=W<=30)")
+        if not bcount.supported(params.F, params.W):
+            raise ValueError("mesh-direct load needs the bit-plane count "
+                             "shape gate (F%32==0, 1<=W<=30)")
         G = manifest["genomes"]
         names: list[str] = []
         for sh in manifest["shards"]:
@@ -172,9 +159,7 @@ class ShardedIndex:
         self._tp = mesh.shape["tp"]
         self._dp = mesh.shape["dp"]
         self._fns = {}
-        if interpret is None:
-            interpret = jax.devices()[0].platform != "tpu"
-        self._interpret = interpret
+        self._impl = impl or bcount.count_impl()
         self._kernel = "planes"
         p = params
         W, F = p.W, p.F
@@ -233,8 +218,7 @@ class ShardedIndex:
             rows = index[1]
             a = rows.start or 0
             b = rows.stop if rows.stop is not None else Gp
-            # hugepage-backed: a 5.3 GB plain np.empty first-touches at
-            # the pathological rate on this host class (hostmem.py)
+            # hugepage-backed (niqki_tpu/hostmem.py)
             out = hostmem.big_empty((W + 1, b - a, L), np.uint32)
             real = min(b, G)
             if real > a:
@@ -247,17 +231,18 @@ class ShardedIndex:
         sharding = NamedSharding(mesh, P(None, "tp", None))
         self._planes = jax.make_array_from_callback((W + 1, Gp, L),
                                                     sharding, cb)
-        self._count = sharded_count_planes(mesh, interpret=interpret)
+        self._count = sharded_count_planes(mesh, self._impl)
         self._qpack = jax.jit(
             bcount.pack_bitplanes, static_argnames=("W", "query"),
             out_shardings=NamedSharding(mesh, P(None, "dp", None)))
+        note("count:" + self._impl)
         return self
 
     @staticmethod
     def _to_host(arr) -> np.ndarray:
         """Materialize a mesh-sharded result on the host. In a multi-process
         mesh the output shards live on other processes' devices, so a plain
-        np.asarray would raise — gather across processes first (DCN path);
+        np.asarray would raise — gather across processes first;
         single-process meshes keep the zero-copy asarray."""
         if jax.process_count() > 1:
             from jax.experimental import multihost_utils
@@ -267,7 +252,7 @@ class ShardedIndex:
 
     def topk_counts(self, q_sanitized: np.ndarray, cap: int,
                     min_score: int):
-        """SPARSE multi-chip hit counting: per-shard bcount + per-shard
+        """SPARSE multi-device hit counting: per-shard count + per-shard
         top-``cap`` with global gids (sharded_count_planes_topk) — only
         (count, gid) candidates cross d2h, never a dense (Q, G) block.
 
@@ -291,7 +276,7 @@ class ShardedIndex:
         fn = self._fns.get(key)
         if fn is None:
             fn = self._fns[key] = sharded_count_planes_topk(
-                self.mesh, cap=cap, interpret=self._interpret)
+                self.mesh, cap=cap, impl=self._impl)
         qp = self._qpack(jnp.asarray(q), W=self.params.W, query=True)
         vals, gids = fn(qp, self._planes, np.int32(min_score))
         vals, gids = self._to_host(vals), self._to_host(gids)
@@ -311,7 +296,7 @@ class ShardedIndex:
         fn = self._fns.get(key)
         if fn is None:
             fn = self._fns[key] = sharded_selfjoin(
-                self.mesh, B=B, cap=cap, interpret=self._interpret)
+                self.mesh, B=B, cap=cap, impl=self._impl)
         res = fn(self._planes, np.int32(lo), np.int32(min_score))
         if cap is None:
             return self._to_host(res)
@@ -321,20 +306,14 @@ class ShardedIndex:
     def counts(self, q_sketches: np.ndarray) -> np.ndarray:
         """(Q, G) hit counts; Q is padded to the mesh's block multiple."""
         from ..ops.bcount import BLOCK_Q
-        from ..ops.pcount import PC_BLOCK_Q, pack_rows_np
         q = np.atleast_2d(np.asarray(q_sketches, np.int32))
         q = np.where((q < 0) | (q >= self.params.fingerprint_range), -3, q)
         Q = len(q)
-        q_align = self._dp * {"packed": PC_BLOCK_Q, "planes": BLOCK_Q,
-                              "dense": 1}[self._kernel]
+        q_align = self._dp * (BLOCK_Q if self._kernel == "planes" else 1)
         pad_q = -Q % q_align
         if pad_q:
             q = np.vstack([q, np.full((pad_q, q.shape[1]), -3, np.int32)])
-        if self._kernel == "packed":
-            qp = pack_rows_np(q.astype(np.int16))
-            qd = jax.device_put(qp, NamedSharding(self.mesh, P("dp", None)))
-            out = self._count(qd, self._mat)
-        elif self._kernel == "planes":
+        if self._kernel == "planes":
             qp = self._qpack(jnp.asarray(q), W=self.params.W, query=True)
             out = self._count(qp, self._planes)
         else:

@@ -1,6 +1,7 @@
 """Sharded sketch + query pipelines over a ('dp', 'tp') mesh.
 
-TPU-native replacements for the reference's OpenMP threading (SURVEY.md §2.2):
+Multi-device replacements for the reference's OpenMP threading (SURVEY.md
+§2.2):
 
   * DP   — query/ingest batches shard on 'dp' (threads pulling fof lines);
   * TP   — the index's genome-row axis shards on 'tp' (the shared bucket
@@ -97,23 +98,19 @@ def sharded_count(mesh: Mesh):
     return jax.jit(fn)
 
 
-def sharded_count_planes(mesh: Mesh, interpret: bool = False):
-    """Bit-plane Pallas count under shard_map: the production multi-chip
-    query kernel (ops/bcount per index shard).
+def sharded_count_planes(mesh: Mesh, impl: str):
+    """Bit-plane count (ops/bcount, implementation ``impl``) under
+    shard_map: the production multi-device query kernel.
 
     Returns a jitted fn(qp (P, Q, L), xp (P, Gp, L)) -> counts (Q, Gp) with
-    the query block axis sharded on 'dp', index rows on 'tp', output on both.
+    the query axis sharded on 'dp', index rows on 'tp', output on both.
     Q must be a dp*BLOCK_Q multiple and Gp a tp*TILE_G multiple (callers pad
     with the never-matching sentinel planes).
     """
-    from ..ops.bcount import BLOCK_Q, _bcount_call
+    from ..ops.bcount import _count
 
     def per_shard(qp, xp):
-        Qs = qp.shape[1]
-        outs = [_bcount_call(qp[:, lo:lo + BLOCK_Q], xp,
-                             interpret=interpret)
-                for lo in range(0, Qs, BLOCK_Q)]
-        return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
+        return _count(qp, xp, impl)
 
     fn = shard_map(
         per_shard, mesh=mesh,
@@ -124,31 +121,26 @@ def sharded_count_planes(mesh: Mesh, interpret: bool = False):
     return jax.jit(fn)
 
 
-def sharded_count_planes_topk(mesh: Mesh, *, cap: int, wrap16: bool = False,
-                              interpret: bool = False):
-    """Per-shard bcount + per-shard top-k compaction: the multi-chip SPARSE
-    hit path. Each 'tp' shard counts its index rows, takes its own
-    top-``cap`` survivors, and rewrites local row ids to GLOBAL gids — so
-    only (count, gid) candidates cross the device->host boundary, never a
-    dense (Q, G) block (the d2h wall the single-device sparse path kills,
-    index.pretty_hits_batch).
+def sharded_count_planes_topk(mesh: Mesh, *, cap: int, impl: str,
+                              wrap16: bool = False):
+    """Per-shard bit-plane count + per-shard top-k compaction: the
+    multi-device SPARSE hit path. Each 'tp' shard counts its index rows,
+    takes its own top-``cap`` survivors, and rewrites local row ids to
+    GLOBAL gids — so only (count, gid) candidates cross the device->host
+    boundary, never a dense (Q, G) block (index.pretty_hits_batch).
 
     Returns a jitted fn(qp (P, Q, L), xp (P, Gp, L), min_score scalar) ->
     (vals, gids), each (Q, tp*cap) int32: shard s owns columns
     [s*cap, (s+1)*cap), count-descending within its block, sub-threshold
-    entries masked to (0, 0) on device (the masked zeros compress on the
-    wire; the native formatters sort/merge survivors themselves). Q must be
-    a dp*BLOCK_Q multiple; a row overflows shard s iff its column
-    s*cap + cap - 1 is still >= min_score. ``wrap16`` wraps counts mod 2^16
-    first (the reference's uint16 matrix counters, niqki_index.cpp:572)."""
-    from ..ops.bcount import BLOCK_Q, _bcount_call, _mask_topk
+    entries masked to (0, 0) on device (the native formatters sort/merge
+    survivors themselves). Q must be a dp*BLOCK_Q multiple; a row
+    overflows shard s iff its column s*cap + cap - 1 is still >=
+    min_score. ``wrap16`` wraps counts mod 2^16 first (the reference's
+    uint16 matrix counters, niqki_index.cpp:572)."""
+    from ..ops.bcount import _count, _mask_topk
 
     def per_shard(qp, xp, min_score):
-        Qs = qp.shape[1]
-        outs = [_bcount_call(qp[:, lo:lo + BLOCK_Q], xp,
-                             interpret=interpret)
-                for lo in range(0, Qs, BLOCK_Q)]
-        c = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
+        c = _count(qp, xp, impl)
         if wrap16:
             c = c & 0xFFFF
         vals, idx = jax.lax.top_k(c, min(cap, c.shape[1]))
@@ -164,15 +156,14 @@ def sharded_count_planes_topk(mesh: Mesh, *, cap: int, wrap16: bool = False,
     return jax.jit(fn)
 
 
-def sharded_selfjoin(mesh: Mesh, *, B: int, cap: int | None,
-                     interpret: bool = False):
+def sharded_selfjoin(mesh: Mesh, *, B: int, cap: int | None, impl: str):
     """All-vs-all self-join block under the mesh with ZERO query h2d: the
     query block is B consecutive GLOBAL index rows, sliced out of the
     tp-sharded planes by a masked gather + psum (each row is owned by
     exactly one shard, so the sum reconstructs it bit-exactly), converted
     to query planes on device, counted per shard, uint16-wrapped, and —
     when ``cap`` is set — per-shard top-k compacted with global gids like
-    sharded_count_planes_topk. The multi-chip twin of
+    sharded_count_planes_topk. The multi-device twin of
     ops/bcount._self_join_topk/_self_join_dense.
 
     Returns fn(xp (P, Gp, L), lo scalar, min_score scalar) ->
@@ -181,7 +172,7 @@ def sharded_selfjoin(mesh: Mesh, *, B: int, cap: int | None,
     Callers must keep [lo, lo+B) inside [0, Gp) (same clamped `starts`
     logic as the single-device path): every query row must be owned, or a
     zero-filled plane row would alias fingerprint 0."""
-    from ..ops.bcount import BLOCK_Q, _bcount_call, _mask_topk
+    from ..ops.bcount import _count, _mask_topk
 
     def per_shard(xp, lo, min_score):
         P_, Gs, L = xp.shape
@@ -194,9 +185,7 @@ def sharded_selfjoin(mesh: Mesh, *, B: int, cap: int | None,
         # stored planes -> query planes (see bcount._planes_as_queries)
         qp = jnp.concatenate([qs[:P_ - 1] | qs[P_ - 1:], qs[P_ - 1:]],
                              axis=0)
-        outs = [_bcount_call(qp[:, o:o + BLOCK_Q], xp, interpret=interpret)
-                for o in range(0, B, BLOCK_Q)]
-        c = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
+        c = _count(qp, xp, impl)
         c = c & 0xFFFF   # reference uint16 matrix counters
         if cap is None:
             return c.astype(jnp.uint16)
@@ -209,30 +198,6 @@ def sharded_selfjoin(mesh: Mesh, *, B: int, cap: int | None,
         in_specs=(P(None, "tp", None), P(), P()),
         out_specs=P(None, "tp") if cap is None
         else (P(None, "tp"), P(None, "tp")),
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
-def sharded_count_packed(mesh: Mesh, interpret: bool = False):
-    """Pair-packed Pallas count (ops/pcount) under shard_map.
-
-    Returns a jitted fn(qp (Q, F/2) i32, xp (Gp, F/2) i32) -> counts (Q, Gp)
-    with queries sharded on 'dp', index rows on 'tp', output on both. Q must
-    be a dp*PC_BLOCK_Q multiple and Gp a tp*TILE_G multiple.
-    """
-    from ..ops.pcount import _count_call, PC_BLOCK_Q
-
-    def per_shard(qp, xp):
-        Qs = qp.shape[0]
-        outs = [_count_call(qp[lo:lo + PC_BLOCK_Q], xp, interpret=interpret)
-                for lo in range(0, Qs, PC_BLOCK_Q)]
-        return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
-
-    fn = shard_map(
-        per_shard, mesh=mesh,
-        in_specs=(P("dp", None), P("tp", None)),
-        out_specs=P("dp", "tp"),
         check_vma=False,
     )
     return jax.jit(fn)

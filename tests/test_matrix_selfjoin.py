@@ -115,21 +115,20 @@ def test_sym_sweep_multiblock_mirrors(tmp_path, monkeypatch):
     assert got3 == want
 
 
-def test_selfjoin_golden_fixture(tmp_path, monkeypatch):
-    """The S=15 ecoli golden matrix (the headline configuration, F=32768)
-    reproduces byte-identically through the self-join path (min_score == 0,
-    names with dots/slashes, G=9). S=10 (F=1024) fails bcount's F%4096
-    shape gate, so forcing selfjoin there raises — also asserted."""
-    idx10 = SketchIndex(SketchParams(lF=10))
+def test_selfjoin_golden_fixture(tmp_path, monkeypatch, ecoli_dir):
+    """The ecoli golden matrices reproduce byte-identically through the
+    self-join path (min_score == 0, names with dots/slashes, G=9): S=15
+    (the headline configuration, F=32768) and S=10 (F=1024), which the
+    bit-plane count's F % 32 gate now takes as well."""
+    fof = str(ecoli_dir / "file_of_file.txt")
     monkeypatch.setenv("NIQKI_TPU_MATRIX", "selfjoin")
-    engine.insert_fof_whole(idx10,
-                            "/root/reference/resources/file_of_file.txt")
-    with pytest.raises(RuntimeError, match="shape gate"):
-        _matrix_bytes(idx10, tmp_path, "gate")
+    idx10 = SketchIndex(SketchParams(lF=10))
+    engine.insert_fof_whole(idx10, fof)
+    got10 = _matrix_bytes(idx10, tmp_path, "s10")
+    assert got10 == gzip.open("tests/fixtures/matrix_s10.gz", "rb").read()
 
     idx = SketchIndex(SketchParams())
-    engine.insert_fof_whole(idx,
-                            "/root/reference/resources/file_of_file.txt")
+    engine.insert_fof_whole(idx, fof)
     got = _matrix_bytes(idx, tmp_path, "golden")
     want = gzip.open("tests/fixtures/matrix_s15.gz", "rb").read()
     assert got == want

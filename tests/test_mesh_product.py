@@ -1,6 +1,6 @@
-"""Production multi-chip path: the REAL engine/CLI surface on a mesh.
+"""Production multi-device path: the REAL engine/CLI surface on a mesh.
 
-VERDICT round-1 item 1: `-M`/`-Q`/`-I` through the CLI on the 8-virtual-
+`-M`/`-Q`/`-I` through the CLI on the 8-virtual-
 device CPU mesh must produce byte-identical goldens — the sharded sketch
 dispatch (record batch over ('dp','tp')), the tp-row-sharded ShardedIndex
 count path, and the packed-wire ingest step are the product, not a demo.
@@ -72,8 +72,8 @@ def test_sketch_files_mesh_matches_single_device(monkeypatch):
 
 def test_mesh_flip_invalidates_sharded_cache(monkeypatch):
     """Flipping NIQKI_TPU_MESH between counts calls in one process must
-    rebuild the sharded serving object on the new layout (VERDICT round-2
-    weak #4) and keep results identical — sharding is a layout choice."""
+    rebuild the sharded serving object on the new layout and keep results
+    identical — sharding is a layout choice."""
     from niqki_tpu import SketchIndex, SketchParams
     rng = np.random.default_rng(0)
     p = SketchParams(lF=6)

@@ -1,4 +1,4 @@
-"""Mesh sparse paths (VERDICT r3 item 3): pretty_hits_batch and the matrix
+"""Mesh sparse paths: pretty_hits_batch and the matrix
 self-join under a ('dp','tp') mesh ship only per-shard top-k survivors
 (global gids) across d2h — byte parity with the dense paths, including
 cap-overflow re-fetch rows. No dense (Q, G) materialization on any

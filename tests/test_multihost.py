@@ -4,8 +4,10 @@ Spawns two worker processes that jax.distributed.initialize against each
 other, build one global ('dp','tp') mesh over 2x4 virtual CPU devices, run
 sharded_count on globally-sharded arrays, and check the gathered result
 against the dense reference. This exercises exactly the code path a real
-multi-host TPU pod runs (per-process addressable shards + cross-process
+multi-host deployment runs (per-process addressable shards + cross-process
 collectives); skipped if the jax build lacks multi-process CPU collectives.
+The workers are pinned to the CPU backend (JAX_PLATFORMS=cpu in their
+environment), so they never open a GPU, let alone the same one twice.
 """
 
 import socket
@@ -126,7 +128,7 @@ def _spawn_two(script_text, tmp_path, ok_tag):
     import os
     import pathlib
     repo = str(pathlib.Path(__file__).resolve().parent.parent)
-    env = dict(os.environ,
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=repo + ":" + os.environ.get("PYTHONPATH", ""))
     procs = [
         subprocess.Popen(
@@ -169,7 +171,7 @@ def test_two_process_sharded_count(tmp_path):
     import os
     import pathlib
     repo = str(pathlib.Path(__file__).resolve().parent.parent)
-    env = dict(os.environ,
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=repo + ":" + os.environ.get("PYTHONPATH", ""))
     procs = [
         subprocess.Popen(

@@ -1,4 +1,4 @@
-"""Parameter-validation boundary behavior (VERDICT r5 item 8).
+"""Parameter-validation boundary behavior.
 
 params.py rejects lF > 24, K > 31, W > 30 up front; the reference accepts
 any -S/-K/-W and degrades at runtime instead (its bucket array is

@@ -133,10 +133,10 @@ def test_multiwindow_pipeline(tmp_path):
 def test_query_fof_whole_batch_invariance(fixtures, ecoli_dir,
                                           ecoli_index_s10, tmp_path,
                                           monkeypatch):
-    """The query pipeline's chunk size is a pure performance knob (r4 moved
-    the default 256 -> 96 = bcount.BLOCK_Q to deepen the sketch/count
-    overlap): output must be byte-identical for ANY batch, including one
-    smaller than the fof and one that splits it unevenly."""
+    """The query pipeline's chunk size is a pure performance knob (the
+    default is bcount.BLOCK_Q): output must be byte-identical for ANY
+    batch, including one smaller than the fof and one that splits it
+    unevenly."""
     monkeypatch.chdir(ecoli_dir)
     outs = []
     for b in (2, 4, 96):

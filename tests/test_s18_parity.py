@@ -1,8 +1,8 @@
 """BASELINE config 3: S=18 "large sketches with -G" — dump/load parity at
 the 2^30-bucket scale (reference dump stream = 2^(S+W) = 2^30 size words,
 4.3 GB decompressed; F=262144 changes every sketch/stream shape on our
-side: psort row padding, the dump writer's bucket scatter, the incremental
-dump scanner).
+side: the device sketch padding, the dump writer's bucket scatter, the
+incremental dump scanner).
 
 The reference side allocates 2^30 posting-list vector headers (~24 GiB
 RSS; /root/reference/src/niqki_index.cpp:27) — ~2.5 min per run in this

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two genome-distance matrices (the eval kit's accuracy check).
 
-TPU-native counterpart of the reference's resources/parse.py (which
+Counterpart of the reference's resources/parse.py (which
 scatter-plots a NIQKI matrix against a Dashing matrix): reads two
 gzip/plain matrix files in the "##Names\t..." format, aligns genomes by
 name, and reports agreement statistics (max/mean abs diff, Pearson r).

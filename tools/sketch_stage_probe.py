@@ -1,9 +1,9 @@
-"""Per-stage cycle breakdown of the staged host sketcher (VERDICT r5
-item 3): where do the ~270 Mbp/s/thread go — the sequential canonical
-roll (A), the 8-wide vectorized hash/fingerprint (B), or the min-scatter
-into the 2^lF table (C)?  Stages A and A+B run as isolated loops of the
-production code shape (native nq_sketch_stage_bench); 'full' is the real
-sketch_packed_range.  Run on an idle host (the probe is CPU-bound).
+"""Per-stage cycle breakdown of the staged host sketcher: where does its
+time go — the sequential canonical roll (A), the 8-wide vectorized
+hash/fingerprint (B), or the min-scatter into the 2^lF table (C)?  Stages
+A and A+B run as isolated loops of the production code shape (native
+nq_sketch_stage_bench); 'full' is the real sketch_packed_range.  Run on an
+idle host (the probe is CPU-bound).
 
 Run: python tools/sketch_stage_probe.py [--lF 15] [--reps 7]
 """
